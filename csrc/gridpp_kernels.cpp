@@ -1101,7 +1101,7 @@ void oi_host_solve(
 // ---------------------------------------------------------------------------
 // Host EnSI solver (reference src/api/oi_ensi.cpp:114-568; mirrors the XLA
 // path in gridpp_tpu/ops/oi_ensi.py _ensi_update with the eigendecomposition
-// the reference uses instead of the TPU's Newton-Schulz). Double-precision
+// the reference uses instead of the device path's Newton-Schulz). Double-precision
 // local algebra (the reference's Armadillo precision); threaded over
 // gridpoints where the reference is single-threaded by necessity (OMP
 // disabled, oi_ensi.cpp:203-206).

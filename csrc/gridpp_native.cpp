@@ -3,7 +3,7 @@
 // Replaces the role of the reference's boost R-tree (reference
 // src/api/kdtree.cpp) at precompute time: building gather maps between
 // grids and padded neighbour lists for OI. Apply-time work runs on the
-// TPU; this engine only has to make the one-time host precompute fast.
+// device; this engine only has to make the one-time host precompute fast.
 //
 // Design: a 3-D cell hash over ECEF coordinates. Points on the Earth's
 // surface occupy a 2-D shell, so the cell size is derived from the

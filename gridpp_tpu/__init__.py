@@ -1,10 +1,10 @@
-"""gridpp_tpu: a TPU-native gridded post-processing engine.
+"""gridpp_tpu: a gridded post-processing engine on JAX/XLA.
 
-A from-scratch JAX/XLA/Pallas implementation of the capability surface of
+A from-scratch JAX/XLA implementation of the capability surface of
 metno/gridpp (downscaling, neighbourhood statistics, calibration, optimal
-interpolation), designed TPU-first: spatial search is a one-time host
-precompute emitting gather maps; all apply-time compute is dense batched
-XLA/Pallas kernels; large grids shard over a device mesh with halo exchange.
+interpolation): spatial search is a one-time host precompute emitting
+gather maps; all apply-time compute is dense batched XLA programs; large
+grids shard over a device mesh with halo exchange.
 
 The public namespace mirrors gridpp's Python bindings (same function names,
 argument orders, enums, and ValueError behaviour) so existing gridpp user
@@ -79,7 +79,7 @@ from .api.neighbourhood import (  # noqa: F401
 
 # ---- Host execution pinning ------------------------------------------
 # The parity (numpy-in/numpy-out) API executes on the host XLA:CPU
-# backend; TPU serving goes through the device entry points
+# backend; GPU serving goes through the device entry points
 # (gridpp_tpu.ops, Pipeline, gridpp_tpu.parallel), which run the same
 # jitted ops on accelerator-resident arrays. See api._common.pin_host.
 import types as _types

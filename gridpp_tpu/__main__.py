@@ -1,6 +1,6 @@
 """`python -m gridpp_tpu` runs the CLI client."""
 import sys
 
-from .client import main
+from .client.driver import cli
 
-sys.exit(main())
+sys.exit(cli())

@@ -13,7 +13,7 @@ from ..constants import __version__
 from .file import File
 from .setup import Setup
 
-USAGE = """Post-processes gridded forecasts (TPU-native gridpp).
+USAGE = """Post-processes gridded forecasts (gridpp on JAX).
 
 usage:  gridpp_tpu inputs [options] outputs [options] [-v var [options]
             [-d downscaler [options]] [-c calibrator [options]
@@ -78,5 +78,13 @@ def main(argv=None):
     return 0
 
 
+def cli():
+    """Console entry point: main() with JAX's persistent compilation cache
+    in its fixed directory (gridpp_tpu.device.enable_compile_cache)."""
+    from ..device import enable_compile_cache
+    enable_compile_cache()
+    return main()
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(cli())

@@ -1,7 +1,7 @@
 """Location and Parameters value classes (reference src/client/Location.h,
 src/client/Parameters.h).
 
-The TPU-native client stores fields and coordinates as numpy arrays, but
+The client stores fields and coordinates as numpy arrays, but
 the parameter-file machinery still speaks in terms of single locations
 (nearest-location lookup, std::set<Location> ordering) and bounds-checked
 parameter vectors; these small classes carry that behaviour. Out-of-range

@@ -745,7 +745,7 @@ class CalibratorBct(Calibrator):
 class CalibratorKriging(Calibrator):
     """Spread station biases in space by kriging (Calibrator/Kriging.cpp).
 
-    weights = K^-1 S per gridpoint (dense batched matmul — the TPU-shaped
+    weights = K^-1 S per gridpoint (dense batched matmul — the data-parallel
     form of the reference's per-gridpoint sparse loops); bias field =
     weights . station_biases, applied by +,-,*,/."""
 

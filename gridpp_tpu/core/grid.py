@@ -2,7 +2,7 @@
 
 Host object with coordinate arrays, a lazily built flattened SpatialIndex
 (row-major, matching grid.cpp:12-55), vectorized get_box (grid.cpp:149-231)
-and cached nearest-neighbour gather maps. The gather maps are the TPU-native
+and cached nearest-neighbour gather maps. The gather maps are the data-parallel
 replacement for per-cell R-tree lookups: computed once per grid pair, then
 every downscaling apply is a pure device gather.
 """

@@ -1,7 +1,7 @@
 """Host-side spatial index used at precompute time.
 
 The reference wraps a boost R-tree (reference src/api/kdtree.cpp) and
-queries it per gridpoint inside every operator's hot loop. The TPU design
+queries it per gridpoint inside every operator's hot loop. This design
 moves ALL spatial queries to a one-time host precompute that emits dense
 gather-index/mask arrays; apply time is pure gathers on device. This module
 is that precompute engine.

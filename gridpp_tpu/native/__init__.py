@@ -1,15 +1,18 @@
 """Native host engine: builds and wraps csrc/gridpp_native.cpp.
 
-Compiled lazily with g++ on first use (cached as a shared library next to
-the package); every query interface has a scipy fallback in
-core/index.py, so the framework works without a compiler.
+Compiled from csrc/ with g++ on first use into
+gridpp_tpu/native/_gridpp_native.so (listed in .gitignore, never
+committed); every query interface has a scipy fallback in core/index.py,
+so the framework works without a compiler.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
 import subprocess
 import threading
+import warnings
 
 import numpy as np
 
@@ -25,20 +28,38 @@ _SO = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                    "_gridpp_native.so")
 
 
+def _fresh() -> bool:
+    return os.path.exists(_SO) and os.path.getmtime(_SO) >= max(
+        os.path.getmtime(s) for s in _SRCS)
+
+
 def _build() -> str | None:
-    srcs = [s for s in _SRCS if os.path.exists(s)]
-    if not srcs:
-        return _SO if os.path.exists(_SO) else None
-    if os.path.exists(_SO) and os.path.getmtime(_SO) >= \
-            max(os.path.getmtime(s) for s in srcs):
+    """Build the library from csrc/ unless an up-to-date build exists.
+
+    Only a library built from this tree's sources is ever loaded. Processes
+    that start together (test workers) serialise on a lock file, and the
+    library is written under a temporary name and renamed into place, so
+    no process loads a half-written file.
+    """
+    if not all(os.path.exists(s) for s in _SRCS):
+        return None
+    if _fresh():
         return _SO
-    cmd = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", "-pthread",
-           "-o", _SO] + srcs
-    try:
-        subprocess.run(cmd, check=True, capture_output=True, timeout=120)
-        return _SO
-    except Exception:
-        return _SO if os.path.exists(_SO) else None
+    with open(_SO + ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if _fresh():
+            return _SO
+        tmp = f"{_SO}.{os.getpid()}.tmp"
+        cmd = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", "-pthread",
+               "-o", tmp] + _SRCS
+        try:
+            subprocess.run(cmd, check=True, capture_output=True, timeout=600)
+        except (OSError, subprocess.SubprocessError) as e:
+            warnings.warn(f"native engine build failed ({e}); the host API "
+                          "falls back to its scipy/XLA paths")
+            return None
+        os.replace(tmp, _SO)
+    return _SO
 
 
 def get_lib():

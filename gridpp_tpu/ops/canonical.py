@@ -2,7 +2,7 @@
 
 Round-4 finding: the serving pipelines and the host API each evaluated
 the structure function with their own transcendental implementation
-(TPU f32 `exp`, libm `expf`, numpy SIMD exp). At rho near-ties — two
+(the device's f32 `exp`, libm `expf`, numpy SIMD exp). At rho near-ties — two
 observations metres apart in effective distance — those implementations
 disagree in the last ulp, the top-`max_points` cut flips, and a
 *different observation set* is selected, producing isolated

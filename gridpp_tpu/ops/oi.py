@@ -1,11 +1,11 @@
 """Optimal interpolation device kernels.
 
-TPU-native redesign of reference src/api/oi.cpp: the reference loops over
+Data-parallel redesign of reference src/api/oi.cpp: the reference loops over
 gridpoints, querying an R-tree and solving a small dense system per point
 (oi.cpp:221-341). Here the per-gridpoint work — structure-function rho
 evaluation, top-max_points selection, S x S covariance assembly, solve,
 increment clamping — is one fused batched XLA program over blocks of
-gridpoints: rho on the VPU, the batched solve on the MXU.
+gridpoints.
 
 Two selection modes:
 - `oi_block`: candidates come from a host spatial query (padded lists) —
@@ -15,8 +15,7 @@ Two selection modes:
   top max_points directly. Since every structure function already zeroes
   rho beyond its localization distance, `rho > 0` reproduces the
   reference's radius query exactly — and no candidate arrays ever cross
-  the host-device link (which on tunneled setups costs more than the
-  entire solve).
+  the host-device link.
 """
 from __future__ import annotations
 
@@ -43,10 +42,10 @@ def _gj_solve_batch_last(a, b):
     a: (S, S, B), b: (S, B). Unrolled Gauss-Jordan without pivoting —
     valid because the OI system is a correlation matrix plus a positive
     diagonal ridge (SPD), and masked-out rows are identity rows. The
-    batch-LAST layout is the TPU key: the 128-lane vector axis is the
-    batch, so every step is full-width elementwise work. A batched
-    LAPACK-style `linalg.solve` on (B, 10, 10) pads the size-10 trailing
-    axis to 128 lanes and runs ~200x slower on v5e.
+    batch-LAST layout makes every step full-width elementwise work over
+    the gridpoint batch. It was chosen over a batched `linalg.solve` on
+    a TPU; whether it still wins on the GPU is an open question
+    (ROADMAP 1.3).
     """
     s = a.shape[0]
     m = jnp.concatenate([a, b[:, None, :]], axis=1)  # (S, S+1, B)
@@ -62,8 +61,8 @@ def _solve_selected(structure, sel_fields, lg, sel_valid, l_obs, l_y, l_r,
     """Shared OI tail: S x S assembly, solve, clamp (oi.cpp:289-341).
 
     All (S, S)-shaped work runs in batch-last layout (see
-    _gj_solve_batch_last) so the small S axes live in sublanes and the
-    gridpoint batch fills the 128-wide vector lanes.
+    _gj_solve_batch_last): the small S axes lead and the gridpoint batch
+    is the minor axis.
     """
     s_cap = lg.shape[1]
     ft = {key: v.T for key, v in sel_fields.items()}  # (S, B)
@@ -285,8 +284,7 @@ def make_oi_dense_sweep(structure, max_points: int,
 
     Wraps oi_block_dense in a lax.map over gridpoint chunks, so the (B, P)
     rho matrix stays bounded while the entire grid sweeps in a single XLA
-    program - no per-block dispatch latency (which dominates on tunneled
-    links).
+    program - no per-block dispatch latency.
     """
     cache, hit = _kernel_cache(
         structure, "_oi_dense_sweep_cache",

@@ -3,9 +3,9 @@
 Reference src/api/oi_ensi.cpp:114-568 runs a SERIAL loop over gridpoints
 (OMP disabled due to a packaging segfault, oi_ensi.cpp:203-206), each doing
 an E x E eigendecomposition. Here blocks of gridpoints run as one batched
-XLA program: the E x E products hit the MXU and the batched `eigh`
-vectorizes, turning the reference's single-threaded bottleneck into the
-TPU's natural shape.
+XLA program in which the E x E algebra is vectorized over the gridpoint
+batch, turning the reference's single-threaded bottleneck into dense
+batched work.
 
 Two modes:
 - host-candidate kernel (make_ensi_kernel) for very large obs sets;
@@ -48,23 +48,27 @@ _NS_COEFFS = (
 def _mm(u, v):
     """Batched (E, E, B) matrix product: out[i,k,:] = sum_j u[i,j,:]v[j,k,:].
 
-    Batch-minor layout deliberately: with the tiny E x E dims batch-major
-    ("bij,bjk->bik") the TPU places E on the 128-lane dimension (<10%
-    utilization, measured 125 GFLOP/s); with the batch on the lanes the
-    contraction is E^3 fused vector FMAs over B-length vectors
-    (measured 440 GFLOP/s, 3.5x).
+    Batch-minor layout: the contraction is E^3 fused vector FMAs over
+    B-length vectors. It beat a batch-major einsum on a TPU; whether it
+    still wins on the GPU is an open question (ROADMAP 1.3).
+
+    The contraction is unrolled into a chain of adds: written as one
+    multiply + reduce over the middle axis, XLA:GPU's compiler (jaxlib
+    0.9.0) segfaults for some shapes, e.g. u (10, 8, B) x v (8, 10, B).
     """
-    return (u[:, :, None, :] * v[None, :, :, :]).sum(axis=1)
+    out = u[:, 0, None, :] * v[None, 0, :, :]
+    for j in range(1, u.shape[1]):
+        out = out + u[:, j, None, :] * v[None, j, :, :]
+    return out
 
 
 def _mv(z, x):
     """(E, E, B) matrix times per-batch vector (B, E) -> (B, E).
 
     Written as an explicit multiply + reduce, NOT an einsum: a
-    dot_general here hits the MXU with its default bf16 operand
-    rounding (~1e-2 relative error in the member increments), and
-    requesting HIGHEST precision is an order of magnitude slower than
-    these exact-f32 VPU ops (both measured)."""
+    dot_general at default precision may round its operands below f32
+    (bf16 on a TPU, TF32 on a GPU), which the member increments cannot
+    afford; this form is exact f32 on every backend."""
     return (z * jnp.swapaxes(x, 0, 1)[None, :, :]).sum(axis=1).T
 
 
@@ -76,10 +80,10 @@ def _inv_sqrt_ns(pinv):
     (z, c) in BATCH-MINOR layout: z is (E, E, B) with
     pinv^{-1/2} = z / sqrt(c) and pinv^{-1} = z z / c.
 
-    Replaces the batched `jnp.linalg.eigh` the round-2 kernel used:
-    on TPU the batched eigh of 4M 10x10 matrices costs ~57 s per
-    2000^2 cycle (measured) while this runs as ~36 small batched
-    vector-FMA matmuls that fuse into the surrounding program. The
+    Replaces the batched `jnp.linalg.eigh` the round-2 kernel used,
+    which was far slower on a TPU; this runs as ~36 small batched
+    vector-FMA matmuls that fuse into the surrounding program (whether
+    eigh wins on the GPU is ROADMAP 1.3). The
     coupled (Y, Z) form is used because the Z-only variant (T = Z A Z)
     is numerically unstable (Higham, Functions of Matrices, ch. 6);
     float32 accuracy matches an f32 eigh path (~kappa * eps relative
@@ -130,14 +134,14 @@ def _ensi_update(structure, sel_valid, l_rho, l_obs, l_sig, l_y, l_yhat,
     rinv = jnp.where(sel_valid, l_rho / (l_sig * l_sig), 0.0)
 
     # Batch-minor panels: (S, E, B) anomalies, (E, S, B) weighted rows.
-    # Everything from here runs as exact-f32 VPU multiply+reduce with
-    # the batch on the 128-lane axis - NOT einsums: a dot_general
-    # lowers to the MXU whose default bf16 operand rounding makes the
-    # Pinv product ASYMMETRIC (pinv[i,j] and pinv[j,i] round
-    # differently), and Newton-Schulz diverges on non-symmetric input
-    # (observed: ~0.01% of gridpoints blowing up to ~1e23 while the
-    # same matrices converge fine in f32). Requesting HIGHEST einsum
-    # precision instead is ~7x slower than these VPU ops (measured).
+    # Everything from here runs as exact-f32 multiply+reduce with the
+    # batch on the minor axis - NOT einsums: a dot_general at default
+    # precision may round its operands below f32 (bf16 on a TPU, TF32
+    # on a GPU), which makes the Pinv product ASYMMETRIC (pinv[i,j] and
+    # pinv[j,i] round differently), and Newton-Schulz diverges on
+    # non-symmetric input (observed on a TPU: ~0.01% of gridpoints
+    # blowing up to ~1e23 while the same matrices converge fine in
+    # f32).
     y_m = jnp.moveaxis(l_y, 0, 2)            # (S, E, B)
     c_m = jnp.swapaxes(y_m, 0, 1) * jnp.moveaxis(rinv, 0, 1)[None]
     pinv_m = _mm(c_m, y_m)                   # (E, E, B)

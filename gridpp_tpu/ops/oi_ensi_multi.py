@@ -80,10 +80,8 @@ def _member_update(structure, sel_fields, sel_valid, l_rho, l_r, l_innov,
                    l_z=None, x_l=None):
     """Shared ebe/ebesc tail in BATCH-LAST layout.
 
-    The (S, S) solve work keeps the small obs axes in sublanes and the
-    gridpoint batch in the 128-wide lanes (_gj_solve_batch_last): a
-    batched LAPACK solve on (B, 10, 10) pads the size-10 trailing axis
-    to 128 lanes and runs ~200x slower on v5e (see ops/oi.py:39-56).
+    The (S, S) solve work keeps the small obs axes leading and the
+    gridpoint batch minor (_gj_solve_batch_last, ops/oi.py).
 
     sel_fields: dict (B, S); sel_valid/l_rho/l_r: (B, S);
     l_innov: (B, S, E) member innovations (masked rows zeroed);
@@ -105,9 +103,9 @@ def _member_update(structure, sel_fields, sel_valid, l_rho, l_r, l_innov,
         num = jnp.where(sv, l_rho.T, 0.0).astype(jnp.float32)
         pair = loc
     else:
-        # Explicit multiply+reduce, not dot_general: the MXU's default
-        # bf16 operand rounding costs ~1e-2 relative error and breaks
-        # the symmetry of r_rr feeding the solve (see ops/oi_ensi).
+        # Explicit multiply+reduce, not dot_general: default-precision
+        # operand rounding (bf16 / TF32) breaks the symmetry of r_rr
+        # feeding the solve (see ops/oi_ensi).
         z_m = jnp.moveaxis(l_z, 0, 2)  # (S, E, B)
         xl_m = x_l.T  # (E, B)
         num = jnp.where(sv, l_rho.T * (z_m * xl_m[None]).sum(axis=1),
@@ -234,8 +232,8 @@ def _utem_core(sel_valid, l_rho, l_obs, l_r, l_yhat, l_y, l_yc,
     background/background_corr: (B, E); bratios: (B,)."""
     b, e = background.shape
     rinv = jnp.where(sel_valid, l_rho / l_r, 0.0)
-    # batch-minor exact-f32 VPU forms + symmetrize: the MXU's
-    # default bf16 rounding makes a dot_general product asymmetric
+    # batch-minor exact-f32 forms + symmetrize: default-precision
+    # (bf16 / TF32) rounding makes a dot_general product asymmetric
     # and Newton-Schulz diverges on non-symmetric input
     # (see ops/oi_ensi._ensi_update)
     yc_m = jnp.moveaxis(l_yc, 0, 2)                    # (S, E, B)
@@ -321,7 +319,7 @@ def make_member_serve_sweep(structure, field_keys, s_cap: int, block: int,
     gathers ONE packed per-obs table row per selection (geometry fields +
     pratios + member innovations [+ normalized anomalies for ebe]) and
     runs the batch-last member update. tab columns:
-    [field_keys..., pratios, innov(E) {, z(E) when use_z}] (+ lane pad).
+    [field_keys..., pratios, innov(E) {, z(E) when use_z}] (+ zero pad).
     """
     key = (tuple(field_keys), int(s_cap), int(block),
            bool(allow_extrapolation), bool(use_z))
@@ -384,7 +382,7 @@ def make_utem_serve_sweep(structure, s_cap: int, block: int,
 
     utem's update needs no pair-correlation geometry (Pinv comes from
     the y_corr ensemble anomalies), so the packed per-obs table is
-    [obs, pratios, y_hat, y_anom(E), y_corr(E)] (+ lane pad).
+    [obs, pratios, y_hat, y_anom(E), y_corr(E)] (+ zero pad).
     Returns (analysis (N, E), n_condition_failures).
     """
     key = (int(s_cap), int(block), bool(allow_extrapolation))

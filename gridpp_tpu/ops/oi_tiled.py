@@ -1,18 +1,17 @@
-"""Tile-union OI: MXU one-hot candidate paging for the serving path.
+"""Tile-union OI: one-hot candidate paging for the serving path.
 
 The cached-shortlist OI (ops/oi.py `oi_block_from_candidates`) still pays
-one random HBM gather per gridpoint-candidate to fetch obs values — the
-dominant cost once the solve is fast (random gather sustains ~50 GB/s on
-v5e vs ~800 GB/s streaming).
+one random gather per gridpoint-candidate to fetch obs values, which on
+a TPU was the dominant cost once the solve was fast.
 
 This module exploits spatial coherence: neighbouring gridpoints select
 nearly the same observations, so the UNION of all shortlisted obs across
 a (th x tw) tile of gridpoints is small (C ~ 64-256). At init we build,
 per tile, a table of those union indices; per call we gather obs values
 once per TABLE ENTRY (T*C rows, ~300x fewer than per-candidate) and then
-route values to each gridpoint's candidates with one-hot matmuls on the
-MXU — a gather expressed as dense compute, which is exactly what the
-systolic array is for.
+route values to each gridpoint's candidates with one-hot matmuls — a
+gather expressed as dense compute. Whether this beats a plain gather on
+the GPU is an open question (ROADMAP 1.2).
 
 Geometry/tables are computed once per (grid, obs network, structure) and
 reused every forecast cycle. Reference semantics: identical to
@@ -28,6 +27,21 @@ from .oi import _gj_solve_batch_last, _select_top, _solve_selected
 
 __all__ = ["build_tile_tables", "oi_tiled_sweep", "TileGeometry",
            "build_static_weights", "oi_tiled_apply_weights"]
+
+# The one-hot operand is exact 0/1 at any precision; the value side asks
+# for HIGHEST so that paging is an exact pick of f32 values.
+PAGE_PRECISION = (jax.lax.Precision.DEFAULT, jax.lax.Precision.HIGHEST)
+
+
+def page_rows(idx, table):
+    """table[n, idx[n, t, k], :] for every (n, t, k), as a one-hot matmul.
+
+    idx: (N, T, K) int32 indices into table's C axis; table: (N, C, F).
+    Returns (N, T, K, F).
+    """
+    oh = (idx[..., None] == jnp.arange(table.shape[1], dtype=idx.dtype)
+          ).astype(table.dtype)
+    return jnp.einsum("ntkc,ncf->ntkf", oh, table, precision=PAGE_PRECISION)
 
 
 class TileGeometry:
@@ -277,15 +291,10 @@ def build_weights_dynamic(structure, geom_dev, static_keys, ratios,
             pad0(valid).reshape(nsteps, nt, tb, k_cap),
             pad0(tall_all).reshape(nsteps, nt, c_cap, fs + 2))
 
-    arange_c = jnp.arange(c_cap, dtype=jnp.int32)
-    prec = (jax.lax.Precision.DEFAULT, jax.lax.Precision.HIGHEST)
-
     def body(chunk):
         li, rh, va, tall = chunk
         b = nt * tb
-        oh_k = (li[..., None] == arange_c).astype(jnp.float32)
-        fk = jnp.einsum("ntkc,ncf->ntkf", oh_k, tall, precision=prec)
-        fk = fk.reshape(b, k_cap, fs + 2)
+        fk = page_rows(li, tall).reshape(b, k_cap, fs + 2)
         va2 = va.reshape(b, k_cap) & (fk[:, :, fs + 1] > 0.5)
         vals, sub, sel_valid = _select_top(rh.reshape(b, k_cap), va2,
                                            s_cap)
@@ -419,11 +428,6 @@ def oi_tiled_sweep(structure, geom_dev, static_keys, background_t,
             pad0(background_t).reshape(nsteps, nt, tb),
             pad0(bvariance_t).reshape(nsteps, nt, tb))
 
-    arange_c = jnp.arange(c_cap, dtype=jnp.int32)
-    # the one-hot operand is exact 0/1 (DEFAULT = single bf16 pass);
-    # the value side keeps the full-f32 split so paging stays exact
-    prec = (jax.lax.Precision.DEFAULT, jax.lax.Precision.HIGHEST)
-
     def body(chunk):
         li, rh, va, tall, bg, bv = chunk
         b = nt * tb
@@ -434,10 +438,8 @@ def oi_tiled_sweep(structure, geom_dev, static_keys, background_t,
         # (B, S, C) one-hot materialized in HBM *in addition to* the
         # (B, K, C) validity one-hot - paging in K-space first replaces
         # both with one materialization and a cheap minor-axis
-        # take_along_axis (measured 1.38x on the 2000^2/10k cycle).
-        oh_k = (li[..., None] == arange_c).astype(jnp.float32)
-        fk = jnp.einsum("ntkc,ncf->ntkf", oh_k, tall, precision=prec)
-        fk = fk.reshape(b, k_cap, fs + 4)
+        # take_along_axis.
+        fk = page_rows(li, tall).reshape(b, k_cap, fs + 4)
         va2 = va.reshape(b, k_cap) & (fk[:, :, fs + 3] > 0.5)
 
         vals, sub, sel_valid = _select_top(rh.reshape(b, k_cap), va2,

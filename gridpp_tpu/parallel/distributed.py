@@ -1,16 +1,17 @@
 """Multi-host distributed execution.
 
 The reference is single-process (OpenMP only, gridpp.cpp:45-68); this
-module is the TPU-pod-scale layer SURVEY.md section 2d/7.7 calls for:
+module is the multi-host layer SURVEY.md section 2d/7.7 calls for:
 
 - `initialize`:   jax.distributed bring-up (one process per host), driven
                   by arguments or GRIDPP_* environment variables. No-op
                   for single-process runs.
 - `global_mesh`:  a ('y', 'x') mesh over every device in the job. Hosts
                   split the 'y' axis, so halo exchange between the tiles
-                  of one host rides ICI while only the one-host-boundary
-                  strip crosses DCN; observation vectors are replicated
-                  (they are KBs against the grid's GBs).
+                  of one host stays on its own links (NVLink) and only
+                  the host-boundary strip crosses the network;
+                  observation vectors are replicated (they are KBs
+                  against the grid's GBs).
 - `global_field`: assemble a globally sharded jax.Array from each host's
                   local block of the grid (hosts never materialize the
                   full field - the point of going multi-host).
@@ -88,10 +89,10 @@ def global_mesh(axis_names=("y", "x"), host_shape=None) -> Mesh:
     process-major order: host p sits at row p // hx, column p % hx, and
     its local devices line up along 'x' inside that column block. The
     default (hy, hx) = (n_hosts, 1) splits only 'y' between hosts —
-    halo traffic between a host's own tiles rides ICI and only
-    host-boundary strips cross DCN; a 2-D host grid additionally
-    exercises corner halo exchange and both-axis host boundaries (the
-    layout production pods use for squarish domains). Single-host jobs
+    halo traffic between a host's own tiles stays on its own links and
+    only host-boundary strips cross the network; a 2-D host grid
+    additionally exercises corner halo exchange and both-axis host
+    boundaries (a layout for squarish domains). Single-host jobs
     fall back to the squarest local mesh.
     """
     devices = jax.devices()
@@ -176,13 +177,12 @@ def make_distributed_step(mesh: Mesh, structure, halfwidth: int,
                  pobs/pbackground/ratios (P,) replicated) -> analysis
     sharded P('y','x').
 
-    Neighbourhood: halo exchange (ppermute: ICI within a host, DCN across
-    the host boundary) + local stencil. OI: each shard solves its own
+    Neighbourhood: halo exchange (ppermute: within a host over its own
+    links, across the host boundary over the network) + local stencil. OI: each shard solves its own
     gridpoints against the replicated observation set (oi_block_dense),
     no collectives. The per-shard OI is chunked over `block`-gridpoint
-    slabs with lax.map so the (block, n_obs) rho panel stays cache/VMEM
-    resident instead of materializing a (tile, n_obs) matrix in HBM —
-    the step is compute-bound, not bandwidth-bound.
+    slabs with lax.map so only a (block, n_obs) rho panel is live instead
+    of a (tile, n_obs) matrix in device memory.
     """
     h = int(halfwidth)
     statistic = int(statistic)

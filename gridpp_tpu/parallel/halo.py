@@ -2,7 +2,7 @@
 
 Inside shard_map, each shard holds a (Y/py, X/px) tile. Stencil ops of
 halfwidth h need the h-deep strips of the 4 (8 with corners) neighbouring
-shards. Strips move over ICI with `lax.ppermute`; shards at the domain
+shards. Strips move between devices with `lax.ppermute`; shards at the domain
 boundary receive a NaN halo, which the NaN-skipping stencil kernels treat
 exactly like the reference's clipped-at-the-edge windows - so the sharded
 result is bitwise-equivalent in structure to the single-chip one.

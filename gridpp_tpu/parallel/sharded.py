@@ -1,7 +1,7 @@
 """Sharded pipeline ops: multi-chip neighbourhood stencils and OI.
 
 - `sharded_neighbourhood`: (Y, X) field split over a ('y','x') mesh;
-  halo exchange (ppermute over ICI) + the local reduce_window stencil.
+  halo exchange (ppermute) + the local reduce_window stencil.
   NaN halos at the domain boundary reproduce the reference's clipped
   windows, so results match the single-chip path.
 - `sharded_oi_kernel`: the per-gridpoint OI solves are independent, so the

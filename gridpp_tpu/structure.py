@@ -6,7 +6,7 @@ Each structure provides:
 - a vectorized device API used by the OI kernels: `corr_jnp(p1, p2)` /
   `corr_background_jnp(p1, p2)` over field dicts of jnp arrays
   (x, y, z, elev, laf [, h, v, w]), broadcasting so one call evaluates a
-  whole (gridpoints x neighbours) or (obs x obs) block on the VPU;
+  whole (gridpoints x neighbours) or (obs x obs) block in one broadcast;
 - host helpers `localization_np(lats, lons)` and `resolve_hvw_np` that
   resolve per-point length scales (spatially varying structures look the
   scales up on their scale grid via nearest neighbour, structure.cpp:188-213).

@@ -206,8 +206,7 @@ def main():
           (gridpp.version(), jax.devices()[0].platform))
     print("Reference expected times: Intel i7 3.40 GHz, 1 OMP thread")
     print("Execution model: numpy-in/numpy-out API; most per-op rows run")
-    print("on XLA:CPU + threaded C++ host kernels (device round-trips are")
-    print("not worth one call; see BENCH_OPS.md). Device-resident serving")
+    print("on XLA:CPU + threaded C++ host kernels. Device-resident serving")
     print("perf is measured by bench.py, not this table.")
     print("-" * 78)
     print("%-44s %9s %9s %9s" % ("Function", "Ref(s)", "measured(s)",
@@ -215,7 +214,7 @@ def main():
 
     results = []
     total_ref = 0.0
-    total_tpu = 0.0
+    total_ours = 0.0
     for (name, detail), spec in run.items():
         label = "%s %s" % (name, detail)
         if args.functions and not any(t in label
@@ -244,12 +243,12 @@ def main():
                         "speedup": None if exp is None else speed})
         if exp:
             total_ref += exp
-            total_tpu += t
+            total_ours += t
     print("-" * 78)
-    if total_tpu > 0:
+    if total_ours > 0:
         print("%-44s %9.2f %9.4f %8.1fx" %
               ("TOTAL (entries with reference numbers)", total_ref,
-               total_tpu, total_ref / total_tpu))
+               total_ours, total_ref / total_ours))
     print(json.dumps({"benchmarks": results}))
 
 

@@ -194,7 +194,7 @@ class TestParameterFileSimple:
 class TestCalibratorOiFixture:
     """Operational OI calibrator against a spatial parameter fixture
     (the reference exercises CalibratorOi through the 10x10/parameter
-    text fixtures; VERDICT r1 item 8)."""
+    text fixtures)."""
 
     def test_oi_with_parameter_fixture(self):
         from gridpp_tpu.client.parameter_file import get_parameter_file

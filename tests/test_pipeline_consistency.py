@@ -362,7 +362,7 @@ def test_flat_pipeline_ratios_default_cycle():
     """A flat-path (small-grid) Pipeline built with ratios= must serve
     run_device cycles without re-passing pratios (regression: the
     general fallback to the construction ratios was dropped twice in
-    round 4; the TPU smoke gate caught it both times)."""
+    round 4; the chip smoke gate caught it both times)."""
     import jax.numpy as jnp
     rng = np.random.default_rng(0)
     ny, nx, p = 16, 20, 12

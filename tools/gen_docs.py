@@ -59,7 +59,7 @@ SECTIONS = [
                    "get_lower_index", "get_upper_index", "is_valid",
                    "version", "set_omp_threads", "get_omp_threads",
                    "set_debug_level", "get_debug_level"]),
-    ("Serving pipelines (TPU-native additions)", [
+    ("Serving pipelines (device-resident additions)", [
         "Pipeline", "EnsiPipeline"]),
 ]
 
